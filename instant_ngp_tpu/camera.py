@@ -3,7 +3,7 @@
 Vectorized jnp re-implementation of common_device.cuh:
 - OpenCV radial/tangential distortion delta (:249-263) and fisheye
   (:265-287), with iterative Newton undistortion (:289-330) — fixed
-  iteration count (TPU: no data-dependent trip counts; the reference caps
+  iteration count (no data-dependent trip counts; the reference caps
   at 100 with early-out, convergence is typically < 10);
 - f-theta polynomial undistortion (:360-374), latlong (:376-383) and
   equirectangular (:385-391) direction mapping;
@@ -24,6 +24,9 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
+
+# float32 camera math must not run in TF32 on GPUs
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 class LensParams(NamedTuple):
@@ -200,13 +203,14 @@ def uv_to_ray(uv: jax.Array, resolution, focal_length: jax.Array,
         dir = dir.at[..., :2].add(delta)
 
     rot = camera_matrix[..., :3, :3]
-    dir = jnp.einsum("...ij,...j->...i", rot, dir)
+    dir = jnp.einsum("...ij,...j->...i", rot, dir, precision=_HIGHEST)
     origin = jnp.broadcast_to(camera_matrix[..., :3, 3], dir.shape)
 
     if aperture_size != 0.0 and aperture_samples is not None:
         lookat = origin + dir * focus_z
         blur = aperture_size * square2disk_shirley(aperture_samples * 2.0 - 1.0)
-        origin = origin + jnp.einsum("...ij,...j->...i", rot[..., :2], blur)
+        origin = origin + jnp.einsum("...ij,...j->...i", rot[..., :2], blur,
+                                     precision=_HIGHEST)
         dir = (lookat - origin) / focus_z
 
     origin = origin + dir * near_distance
@@ -224,7 +228,8 @@ def pos_to_uv(pos: jax.Array, resolution, focal_length: jax.Array,
     rot = camera_matrix[..., :3, :3]
     origin = camera_matrix[..., :3, 3]
     d = pos - origin
-    d_cam = jnp.einsum("...ji,...j->...i", rot, d)  # R^T (orthonormal)
+    d_cam = jnp.einsum("...ji,...j->...i", rot, d,  # R^T (orthonormal)
+                       precision=_HIGHEST)
     z = d_cam[..., 2]
     safe_z = jnp.where(jnp.abs(z) < 1e-12, 1e-12, z)
     x = d_cam[..., 0] / safe_z

@@ -6,7 +6,7 @@ tree keeps, per level, the set of cells touching the mesh surface, and a
 shared-vertex table so per-level features live at cell corners (the
 reference's "dual nodes" holding 8 vertex ids each, :52-54,166-180).
 
-TPU-native storage: instead of pointer-chasing node arrays, each level
+Array storage: instead of pointer-chasing node arrays, each level
 stores SORTED Morton codes of occupied cells plus a sorted corner-vertex
 code table. Membership tests and vertex lookups become
 jnp.searchsorted — log-time, branch-free, batched.

@@ -70,15 +70,18 @@ class NerfObject:
             snap = load_snapshot(path)
             self._init_model(snap["config"], int(snap.get("aabb_scale", 1)),
                              snap["trainer"]["params"],
-                             snap["density_grid"])
+                             snap["density_grid"],
+                             snap.get("grid_layout", "planar"))
         else:
             self.model = None
             self.params = None
             self.config = None
             self.aabb = (self.center + 0.0, self.center + 1.0)
 
-    def _init_model(self, cfg, aabb_scale: int, params, density_grid):
-        """Rebuild a standalone NeRF model from an embedded config."""
+    def _init_model(self, cfg, aabb_scale: int, params, density_grid,
+                    grid_layout: str = "planar"):
+        """Rebuild a standalone NeRF model from an embedded config; the
+        hash table is converted from the snapshot's `grid_layout`."""
         from ..nerf.model import NerfNetwork
 
         self.config = cfg
@@ -89,6 +92,9 @@ class NerfObject:
             cfg["network"], cfg.get("rgb_network", cfg["network"]),
             aabb_scale=aabb_scale)
         self.params = jax.tree_util.tree_map(jnp.asarray, params)
+        enc = self.model.pos_encoding
+        if hasattr(enc, "convert_state_layout"):
+            self.params = enc.convert_state_layout(self.params, grid_layout)
         self.density_grid = jnp.asarray(density_grid)
         self.aabb_scale = aabb_scale
         side = min(aabb_scale, 128)

@@ -1,5 +1,5 @@
 """NeRF workload: occupancy grid, sampling, composite loss, rendering.
 
-TPU-native re-design of the reference NeRF testbed
+JAX re-design of the reference NeRF testbed
 (src/testbed_nerf.cu, 3282 LoC). See SURVEY.md §2.2 for the semantics map.
 """

@@ -144,7 +144,7 @@ def mip_from_pos(pos: jax.Array, max_cascade: int) -> jax.Array:
 
 # Component-separated variants: callers that hold million-element (R, M)
 # position planes per axis use these so no (..., 3)-minor-dim buffer is
-# ever materialized (a trailing dim of 3 tile-pads 42x on TPU).
+# ever materialized.
 
 def cascaded_grid_idx_at_comps(comps, mip: jax.Array
                                ) -> Tuple[jax.Array, jax.Array]:
@@ -165,10 +165,9 @@ def density_grid_occupied_at_comps(comps, bitfield: jax.Array,
                                    mip: jax.Array) -> jax.Array:
     idx, valid = cascaded_grid_idx_at_comps(comps, mip)
     byte_idx = idx // 8 + grid_mip_offset(mip) // 8
-    # row-gather + lane select: one descriptor fetches a 128-byte row of
-    # the bitfield (4096 voxels' occupancy) instead of one byte — row
-    # gathers run ~3x the flat element rate on TPU v5e
-    # (microbench_gather_r3.json); bit-identical to the byte gather
+    # row-gather + lane select: one gather fetches a 128-byte row of
+    # the bitfield (4096 voxels' occupancy) instead of one byte;
+    # bit-identical to the byte gather
     n_bytes = bitfield.shape[0]
     if n_bytes % 128 == 0:
         rows = bitfield.reshape(-1, 128)[byte_idx // 128]

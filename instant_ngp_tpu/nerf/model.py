@@ -13,7 +13,7 @@ Re-implements include/neural-graphics-primitives/nerf_network.h:31-503:
 - `density()` fast path evaluates only the density half (used by the
   occupancy-grid update and marching cubes).
 
-TPU design: both MLPs are bf16 matmuls with fp32 accumulation; the hash
+Design: both MLPs are bf16 matmuls with fp32 accumulation; the hash
 encoding is fp32 (table gathers + lerp fuse into the first matmul's
 producers). Params are one pytree: {"pos_encoding", "density_net",
 "dir_encoding", "rgb_net"}.
@@ -117,7 +117,7 @@ class NerfNetwork:
 
         Returns (rgb_raw (N, 3-as-channels...), density_raw (N,)) — i.e. a
         tuple (r, g, b, sigma) of (N,) arrays, avoiding any big (N, 3/4)
-        result buffer (TPU tile padding would inflate it 32-42x).
+        result buffer.
 
         pos_feats: optional precomputed position features (the tensor-
         parallel path computes them with a level-sharded table and
@@ -125,8 +125,8 @@ class NerfNetwork:
 
         encode_rng: when given (training only) the grid encoding runs in
         stochastic-corner mode — one sampled corner per (sample, level)
-        instead of 2^d, an unbiased estimator with 8x fewer gather/scatter
-        descriptors (the measured cost unit on TPU). Callers needing
+        instead of 2^d, an unbiased estimator with 8x fewer table
+        gathers and scatter-adds. Callers needing
         dL/d(pos) must leave it None."""
         if pos_feats is not None:
             feats = pos_feats

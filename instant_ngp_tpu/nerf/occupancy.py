@@ -1,6 +1,6 @@
 """Cascaded occupancy grid: density EMA, bitfield, mip max-pooling.
 
-TPU-native re-implementation of the reference density-grid machinery
+JAX re-implementation of the reference density-grid machinery
 (src/testbed_nerf.cu:74-332 kernels, update_density_grid_nerf :2271-2360,
 update_density_grid_mean_and_bitfield :2363-2380):
 
@@ -48,7 +48,7 @@ def init_bitfield() -> jax.Array:
 
 def cell_positions(indices: jax.Array, key: jax.Array):
     """Jittered world position inside each grid cell, as a tuple of 3
-    (N,) component arrays (TPU layout: no (N, 3) tile padding).
+    (N,) component arrays (no (N, 3) buffers).
 
     indices: (N,) flat grid indices (level * N_CELLS + morton).
     Mirrors generate_grid_samples_nerf_nonuniform's position math

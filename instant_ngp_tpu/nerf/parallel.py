@@ -1,9 +1,9 @@
 """Multi-chip NeRF training: rays sharded over the data mesh axis.
 
-The TPU scaling design (SURVEY.md §2.6): parameters and the occupancy
+The scaling design (SURVEY.md §2.6): parameters and the occupancy
 bitfield replicate (hash table ≈ tens of MB); each chip generates,
 marches, compacts, and backprops its own ray shard; gradients all-reduce
-over ICI with one `psum`; the optimizer update is computed replicated so
+with one `pmean`; the optimizer update is computed replicated so
 parameters stay bit-identical per chip. shard_map makes every collective
 explicit — the only cross-chip traffic is the gradient psum and scalar
 stat psums, both overlapped by XLA with the backward pass.
@@ -21,7 +21,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from .training import NerfTrainStepConfig, nerf_train_step
 
@@ -49,11 +48,11 @@ def make_sharded_train_step(model, optimizer, cfg: NerfTrainStepConfig,
             error_cdfs=error_cdfs, error_map=error_map, envmap=envmap,
             distortion=distortion, axis_name=axis)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_step, mesh=mesh,
         in_specs=(P(), P(), P(), P(), P(axis), P(), P(), P(), P(), P()),
         out_specs=(P(), P()),
-        check_rep=False)
+        check_vma=False)
     jitted = jax.jit(sharded, donate_argnums=(0,))
 
     def step(state, data, bitfield, mean_density, keys, cam=None,
@@ -69,7 +68,7 @@ def make_sharded_density_update(testbed, mesh: Mesh, axis: str = "data",
                                 n_uniform: int = 0, n_nonuniform: int = 0):
     """Density-grid maintenance for the sharded loop: each chip evaluates
     a 1/n_devices shard of the sampled cells, results all-gather, and the
-    EMA/bitfield update is computed replicated — the TPU analog of the
+    EMA/bitfield update is computed replicated — the analog of the
     reference's compute-once + dirty-tracked broadcast
     (testbed.cu:5008-5048).
 
@@ -93,11 +92,11 @@ def make_sharded_density_update(testbed, mesh: Mesh, axis: str = "data",
         mean = density_grid_mean(new_grid)
         return new_grid, bitfield, mean
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         local_update, mesh=mesh,
         in_specs=(P(), P(), P(axis), P()),
         out_specs=(P(), P(), P()),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(sharded)
 
 
@@ -110,11 +109,11 @@ def make_sharded_render(model, render_cfg, aabb_min, aabb_max, mesh: Mesh,
         return render_tile(model, render_cfg, params, origins[0], dirs[0],
                            bitfield, aabb_min, aabb_max, bg)
 
-    sharded = shard_map(
+    sharded = jax.shard_map(
         lambda p, o, d, b, bg: jax.tree_util.tree_map(
             lambda x: x[None], local_render(p, o, d, b, bg)),
         mesh=mesh,
         in_specs=(P(), P(axis), P(axis), P(), P()),
         out_specs=P(axis),
-        check_rep=False)
+        check_vma=False)
     return jax.jit(sharded)

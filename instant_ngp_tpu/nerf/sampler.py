@@ -1,8 +1,8 @@
-"""Training-ray generation + occupancy-guided marching, TPU-native.
+"""Training-ray generation + occupancy-guided marching.
 
 Replaces generate_training_samples_nerf (src/testbed_nerf.cu:679-838).
-The CUDA design is two ragged passes with atomic compaction — an
-anti-pattern on TPU (SURVEY.md §7 hard parts). Here:
+The CUDA design is two ragged passes with atomic compaction (SURVEY.md
+§7 hard parts). Here, with static shapes throughout:
 
 1. `generate_rays`: pick a training image and pixel per ray lane
    (uniform; error-CDF importance sampling plugs in later), build the ray
@@ -20,7 +20,7 @@ anti-pattern on TPU (SURVEY.md §7 hard parts). Here:
    stream into a flat (capacity,) sample buffer plus per-ray (base,
    count). Deterministic (unlike the reference's atomic ordering), static
    shapes, and the network then runs on a dense batch with zero padding
-   waste — the TPU analog of the reference's count-then-write.
+   waste — the static-shape analog of the reference's count-then-write.
 
 Sample payload matches NerfCoordinate: warped position in [0,1]^3, warped
 direction dir/2+0.5, warped dt (nerf_device.cuh:144-199).
@@ -43,6 +43,9 @@ from .march import (MAX_DEPTH, advance_n_steps, aabb_contains, calc_dt,
                     to_stepping_space, warp_direction, warp_dt,
                     warp_position)
 
+# float32 camera math must not run in TF32 on GPUs
+_HIGHEST = jax.lax.Precision.HIGHEST
+
 
 class RayBatch(NamedTuple):
     origins: jax.Array       # (R, 3) unnormalized ray origins
@@ -57,9 +60,8 @@ class RayBatch(NamedTuple):
 class SampleBatch(NamedTuple):
     """Compacted flat samples + per-ray segment table.
 
-    Vector quantities are STRUCTURE-OF-ARRAYS tuples of (S,) components:
-    a materialized (S, 3) buffer tile-pads its trailing dim to 128 lanes
-    on TPU (42x memory); component planes tile perfectly."""
+    Vector quantities are STRUCTURE-OF-ARRAYS tuples of (S,) components
+    (no materialized (S, 3) buffers)."""
 
     positions: Tuple[jax.Array, ...]  # 3 x (S,) warped
     dirs: Tuple[jax.Array, ...]       # 3 x (S,) warped
@@ -95,7 +97,7 @@ def rotvec_matrix(r: jax.Array) -> jax.Array:
     a = jnp.where(small, 1.0 - t2 / 6.0, jnp.sin(t) / t)
     b = jnp.where(small, 0.5 - t2 / 24.0, (1.0 - jnp.cos(t)) / safe_t2)
     eye = jnp.broadcast_to(jnp.eye(3), K.shape)
-    return eye + a * K + b * (K @ K)
+    return eye + a * K + b * jnp.matmul(K, K, precision=_HIGHEST)
 
 
 def build_rays(data: NerfTrainingData, img_idx: jax.Array, uv: jax.Array,
@@ -117,7 +119,8 @@ def build_rays(data: NerfTrainingData, img_idx: jax.Array, uv: jax.Array,
     focal = data.focal_lengths[img_idx]
     if cam is not None:
         rot = rotvec_matrix(cam["rot"][img_idx])           # (R, 3, 3)
-        new_rot = jnp.einsum("...ij,...jk->...ik", rot, xform[..., :3, :3])
+        new_rot = jnp.einsum("...ij,...jk->...ik", rot, xform[..., :3, :3],
+                             precision=_HIGHEST)
         new_t = (xform[..., :3, 3] + cam["pos"][img_idx])[..., None]
         xform = jnp.concatenate([new_rot, new_t], axis=-1)
         focal = focal * (1.0 + cam["focal"][None, :])
@@ -219,7 +222,7 @@ def march_rays(rays: RayBatch, bitfield: jax.Array, aabb_min, aabb_max,
     Returns (ts, dts, is_sample) each (R, n_march), time-ordered along
     the minor axis.
 
-    TPU-native key insight: the reference's sequential DDA march
+    Key insight: the reference's sequential DDA march
     (testbed_nerf.cu:679-838 via nerf_device.cuh:430-492) always lands on
     integer stepping-space coordinates — `advance_to_next_voxel` rounds
     its skip up to a whole number of cone steps. So the set of positions
@@ -275,13 +278,12 @@ def compact_samples(rays: RayBatch, ts: jax.Array, dts: jax.Array,
 
     Random-access traffic is ONE t gather + ONE packed per-ray row
     gather on the compacted (capacity,) domain — the slot->candidate
-    inversion itself is a SORT (dense passes, zero descriptors; see
-    inline comment), and everything else (dt, positions, dirs, warps)
+    inversion itself is a SORT (dense passes, no scatter; see inline
+    comment), and everything else (dt, positions, dirs, warps)
     is recomputed arithmetically from (ray_id, t), instead of
     scattering nine separate (R*M,) value planes. The per-ray origin+
-    direction ride one (R, 8) row so a single descriptor fetches all
-    six components (rows8 ~172M/s vs 6 flat gathers at ~105M/s each —
-    microbench_gather_r3.json); dt = calc_dt(t) replaces its gather."""
+    direction ride one (R, 8) row so a single gather fetches all
+    six components; dt = calc_dt(t) replaces its gather."""
     n_rays, n_march = emits.shape
     e = emits.astype(jnp.int32)
     count = jnp.sum(e, axis=1)                                 # (R,)
@@ -298,11 +300,10 @@ def compact_samples(rays: RayBatch, ts: jax.Array, dts: jax.Array,
     flat_pos = jnp.minimum(flat_pos, capacity)                 # clamp tail
 
     # invert slot->candidate by SORT instead of scatter: XLA sort is
-    # dense comparison passes (zero gather/scatter descriptors), and the
-    # R*M-element scatter paid one descriptor per SOURCE element even
-    # for the ~88% non-emitting candidates. Measured on TPU v5e at the
-    # fox operating point (walkthrough_out/microbench_compact_r3.json):
-    # sort 5.6 ms vs scatter 13.4 ms. Emitting candidates' keys are
+    # dense comparison passes, where the R*M-element scatter writes one
+    # element per SOURCE candidate even for the ~88% non-emitting ones.
+    # (Its cost on the GPU against an atomic-counter compaction is an
+    # open measurement; see PERF.md.) Emitting candidates' keys are
     # exactly their compacted ranks (unique, < capacity), so after an
     # ascending key sort the first min(capacity, n) values ARE the
     # compacted source indices; tail slots keep the R*M sentinel.
@@ -325,7 +326,7 @@ def compact_samples(rays: RayBatch, ts: jax.Array, dts: jax.Array,
 
     o, d = rays.origins, rays.dirs
     span = aabb_max - aabb_min
-    # one (R, 8) row per ray: a single gather descriptor per sample
+    # one (R, 8) row per ray: a single row gather per sample
     # fetches origin AND direction (vs six scalar gathers)
     od = jnp.concatenate([o, d, jnp.zeros((n_rays, 2), o.dtype)], axis=1)
     od_r = od[ray_id]                                          # (S, 8)

@@ -7,7 +7,7 @@ any of its 8 corners (corner in front of the camera and projecting inside
 
 Runs once per dataset in a single jitted dispatch (lax.map over cell
 chunks, scan over images). All per-corner math is component-separated —
-(chunk, 8) x/y/z planes — because (N, 8, 3) buffers tile-pad 42x on TPU.
+(chunk, 8) x/y/z planes, with no (N, 8, 3) buffers.
 The reference's undistortion round-trip check is approximated by the
 plain projection test; it only differs for extreme distortion outside
 the image, where density barely matters.

@@ -1,8 +1,7 @@
 """Numerical ops: encodings, MLPs, losses, optimizers, trainer.
 
-This is the TPU-native equivalent of the reference's tiny-cuda-nn layer
-(SURVEY.md §2.1). Pure-JAX reference implementations live here; Pallas TPU
-kernels for the hot paths live in ops/pallas/ behind the same API.
+This is the JAX equivalent of the reference's tiny-cuda-nn layer
+(SURVEY.md §2.1), in plain JAX that XLA compiles for the device.
 """
 
 from .encodings import create_encoding  # noqa: F401

@@ -1,7 +1,7 @@
 """Input encodings: Identity, Frequency, SphericalHarmonics, OneBlob,
 TriangleWave, Composite, and the grid family (via grid_encoding.py).
 
-TPU-native re-implementations of the tcnn encodings the reference
+JAX re-implementations of the tcnn encodings the reference
 instantiates through `create_encoding` (src/testbed.cu:3816-3825) and its
 JSON configs (configs/nerf/base.json:35-48, configs/image/oneblob.json,
 configs/sdf/takikawa.json, ...). All encodings are functional:
@@ -141,7 +141,7 @@ class SphericalHarmonicsEncoding(Encoding):
         return _sh_basis(self.degree, d)
 
     def apply_components(self, params, comps, **kwargs):
-        """Component-separated variant (TPU layout: avoids (N, 3) tiles)."""
+        """Component-separated variant (avoids (N, 3) buffers)."""
         x, y, z = (c * 2.0 - 1.0 for c in comps[:3])
         return _sh_basis_components(self.degree, x, y, z)
 

@@ -1,6 +1,6 @@
 """Multiresolution hash/dense/tiled grid encoding (the heart of instant-ngp).
 
-TPU-native re-implementation of tcnn's GridEncoding, which the reference
+JAX re-implementation of tcnn's GridEncoding, which the reference
 uses for every testbed (created via `create_encoding`; params auto-derived
 at src/testbed.cu:3679-3723; coarse-to-fine masking via `set_max_level_gpu`,
 src/testbed_nerf.cu:2796-2806).
@@ -17,16 +17,13 @@ Semantics kept from tcnn's encodings/grid.h:
 - `max_level` masks levels above the given index to zero features (and
   hence zero gradient) for coarse-to-fine schedules.
 
-The per-level loop is the semantic reference; the fused paths implement
-the same contract with minimal DESCRIPTOR traffic — on TPU the
-gather/scatter cost unit is the descriptor, not bytes (measured rounds
-2-3; see ops/pallas/__init__.py for why a hand kernel cannot beat XLA's
-issue rate). The round-3 default is the ROW-GATHER design (`row_gather`
-docstring): the table is entry-interleaved so one 128-lane row
-descriptor moves ALL F features of a (sample, level, corner), forward
-(gather + lane select, ~173M fetches/s vs 105M flat) and backward
-(one-hot row scatter-add, 2.3x the flat rate) — measured in
-walkthrough_out/microbench_gather_r3.json.
+The per-level loop is the semantic reference. The fused paths compute all
+(level, corner) pairs in one flattened (N, L*2^d) axis and implement the
+same contract with one gather over all levels; they differ only in how the
+table is laid out and fetched (the default flat path, `row_gather`,
+`packed`).
+Corner and feature reductions are reshapes and sums, so they stay exact
+float32 on every backend (no matmul that could run in TF32).
 """
 
 from __future__ import annotations
@@ -45,12 +42,22 @@ from .encodings import Encoding
 _PRIMES = np.array([1, 2654435761, 805459861], dtype=np.uint32)
 
 
-def _feat_reduce(L: int, C: int, F: int, feat: int) -> np.ndarray:
-    """(L*C, L*F) one-hot: column l*F+feat sums level l's corners."""
-    m = np.zeros((L * C, L * F), np.float32)
-    base = np.kron(np.eye(L, dtype=np.float32), np.ones((C, 1), np.float32))
-    m[:, feat::F] = base
-    return m
+def _level_sum(v: jax.Array, n_levels: int) -> jax.Array:
+    """(N, L*K) -> (N, L): sum each level's K consecutive columns."""
+    return v.reshape(v.shape[0], n_levels, -1).sum(axis=-1)
+
+
+def _interleave(per_feat) -> jax.Array:
+    """F arrays (N, L) -> (N, L*F) with level l feature k at column l*F+k
+    (the encoding's output layout)."""
+    return jnp.stack(per_feat, axis=-1).reshape(per_feat[0].shape[0], -1)
+
+
+def _feature_cotangents(g: jax.Array, n_features: int):
+    """(N, L*F) output cotangent -> F arrays (N, L); transpose of
+    _interleave."""
+    g = g.reshape(g.shape[0], -1, n_features)
+    return [g[..., k] for k in range(n_features)]
 
 
 def grid_scale(level: int, log2_per_level_scale: float, base_resolution: int) -> float:
@@ -65,15 +72,12 @@ def grid_resolution(scale: float) -> int:
 class GridEncoding(Encoding):
     """Functional grid encoding. Parameters are one flat fp32 vector.
 
-    `packed` (default on, even F): the forward gathers a DERIVED table
-    whose f32 words bit-pack both features of an entry as bf16 — ONE
-    gather descriptor per (sample, level, corner) instead of one per
-    feature. Measured on TPU v5e, gather/scatter cost is per-DESCRIPTOR
-    (~130M/s regardless of width; narrow multi-feature rows tile-pad
-    64x), so halving descriptors halves the dominant cost of the whole
-    framework. Forward feature precision becomes bf16 — the reference's
-    tcnn stores grid params in fp16 (__half) anyway — while gradients
-    scatter-add into the fp32 master exactly (custom VJP below)."""
+    `packed` (planar layout only, even F): the forward gathers a DERIVED
+    table whose f32 words bit-pack two features of an entry as bf16, so
+    one gather serves a feature pair. Forward feature precision becomes
+    bf16 — the reference's tcnn stores grid params in fp16 (__half)
+    anyway — while gradients scatter-add into the fp32 master exactly
+    (custom VJP below)."""
 
     n_dims: int
     n_levels: int = 16
@@ -84,42 +88,36 @@ class GridEncoding(Encoding):
     grid_type: str = "Hash"           # Hash | Dense | Tiled
     interpolation: str = "Linear"     # Linear | Smoothstep | Nearest
     dtype: Any = jnp.float32
-    packed: bool = True
-    # ROW-GATHER mode (default on when F divides 128): the table is
-    # stored ENTRY-INTERLEAVED (feature k of entry e at flat e*F + k)
-    # and every fetch/deposit moves a whole 128-lane ROW. Measured on
-    # TPU v5e (walkthrough_out/microbench_gather_r3.json): a row gather
-    # runs ~306M rows/s vs ~105M elements/s flat (~173M/s including the
-    # F-feature lane select), and a one-hot row scatter-add deposits ALL
-    # F feature gradients of an entry in ONE descriptor at 2.3x the
-    # flat-scatter rate. So one descriptor serves a whole (sample,
-    # level, corner) in both directions — the forward also returns to
-    # full f32 feature precision (no bf16 packing needed).
-    #
-    # complex64 packings were the round-2 candidate for the same goal
-    # and are REMOVED after TPU measurement refuted them
-    # (walkthrough_out/ab_c64_r3.json: c64 gather = 2 f32 descriptors,
-    # c64 scatter-add ~11x slower — XLA decomposes complex into
-    # real/imag pairs on TPU).
-    row_gather: bool = True
+    packed: bool = False
+    # ROW-GATHER mode (when F divides 128): the table is stored
+    # ENTRY-INTERLEAVED (feature k of entry e at flat e*F + k) and every
+    # fetch/deposit moves a whole 128-float row holding the entry; the F
+    # features are lane-selected forward, and the backward deposits a
+    # one-hot 128-float row per (sample, level, corner). Off (the
+    # default, the flat path): the planar layout (feature k of entry e
+    # at k*n_words + e) with one f32 gather and one element scatter-add
+    # per feature (or one gather per bf16 feature pair with `packed`).
+    # On an H100 the flat path trains base.json about 2x faster than
+    # the row path (PERF.md, PR 1).
+    row_gather: bool = False
     # stochastic-corner training encode: along this many RANDOMLY-chosen
     # axes per (sample, level) the interpolation is computed exactly
     # (both endpoints gathered and weighted); the rest are
     # Bernoulli-sampled. 0 = pure 1-corner estimator (2^d fewer
-    # descriptors, highest variance); d-1 = 2^(d-1) descriptors, lowest
-    # stochastic variance. Trades descriptor count against estimator
+    # fetches, highest variance); d-1 = 2^(d-1) fetches, lowest
+    # stochastic variance. Trades fetch count against estimator
     # noise — see _build_stochastic_call.
     stochastic_exact_axes: int = 0
     # with stochastic_exact_axes > 0: scatter the table gradient at ONE
     # fully-Bernoulli corner (weight 1) instead of at every enumerated
     # forward corner — still unbiased (the Bernoulli distribution IS the
-    # d-linear weight), halving/quartering backward scatter descriptors;
+    # d-linear weight), halving/quartering backward scatter-adds;
     # gradient noise is better tolerated than forward noise (Adam
     # momentum averages it across steps).
     stochastic_bwd: bool = False
     # sort + segment-merge duplicate backward deposits before the row
-    # scatter (coarse dense levels are duplicate-heavy); off pending
-    # TPU measurement (scripts/microbench_deposit.py)
+    # scatter (coarse dense levels are duplicate-heavy); row mode only,
+    # off by default
     bwd_coalesce: bool = False
 
     def __post_init__(self):
@@ -160,16 +158,18 @@ class GridEncoding(Encoding):
         # row-gather needs whole rows of F-interleaved features
         self._row_mode = bool(self.row_gather) \
             and 128 % self.n_features_per_level == 0
+        if self.bwd_coalesce and not self._row_mode:
+            raise ValueError("bwd_coalesce applies only to the row-gather "
+                             "backward (row_gather=True)")
         self._row_chunk = 1 << 22  # rows per gather/scatter chunk (2 GB)
         # Parameter layout (n_params is layout-independent):
-        # - row mode (default): INTERLEAVED like tcnn — feature k of
-        #   entry e at params[e * F + k], so one 128-lane row holds
-        #   128/F whole entries and one row gather fetches all F
-        #   features of an entry (see row_gather docstring).
-        # - planar (row_gather=False fallback): feature k of entry e at
+        # - planar (default, row_gather=False): feature k of entry e at
         #   params[k * n_words + e]; keeps per-feature views contiguous
-        #   so the packed bf16-pair table (pack_params) is elementwise
-        #   (measured 113 ms -> ~1 ms vs stride-2 gathers on TPU v5e).
+        #   so the packed bf16-pair table (pack_params) is elementwise.
+        # - row mode: INTERLEAVED like tcnn — feature k of entry e at
+        #   params[e * F + k], so one 128-float row holds 128/F whole
+        #   entries and one row gather fetches all F features of an
+        #   entry (see row_gather).
         self._n_words = int(offset)
         self._total_params = int(offset) * self.n_features_per_level
 
@@ -178,8 +178,7 @@ class GridEncoding(Encoding):
             *([np.arange(2)] * self.n_dims), indexing="ij"),
             axis=-1).reshape(-1, self.n_dims).astype(np.int32)
 
-        # one fused gather over all levels (TPU: a single large gather
-        # beats L small ones); per-level dense strides (L, d)
+        # one fused gather over all levels; per-level dense strides (L, d)
         strides = np.ones((self.n_levels, self.n_dims), np.int64)
         for lvl in range(self.n_levels):
             for dim in range(1, self.n_dims):
@@ -248,8 +247,9 @@ class GridEncoding(Encoding):
                              keys=("pos_encoding", "encoding")):
         """Convert every grid-table leaf (params AND optimizer moments,
         identified by dict key) in a trainer-state pytree from layout
-        `src` to the current layout. Used by snapshot load so planar-era
-        snapshots stay loadable after the row-mode default flip."""
+        `src` to the current layout. Used by snapshot load, so snapshots
+        saved from a row-mode (interleaved) encoder load into the default
+        planar one and back."""
         if src == self.layout:
             return state
 
@@ -357,12 +357,9 @@ class GridEncoding(Encoding):
     def _fused_constants(self):
         """Per-(level, corner) constant vectors of length L*C, cached.
 
-        TPU layout rule: big intermediates must have their LAST dimension
-        near the 128-lane width — a trailing dim of 3 (xyz) or 8 (corners)
-        pads up to 128 and inflates memory 16-42x (observed: a
-        (N, L, 8, 3) coords buffer became 77 GB on fox). So everything is
-        component-separated (x/y/z planes) over one flattened (level,
-        corner) axis of length L*2^d."""
+        Everything is component-separated (x/y/z planes) over one
+        flattened (level, corner) axis of length L*2^d, so no large
+        intermediate carries a trailing axis of 3."""
         if getattr(self, "_fc", None) is not None:
             return self._fc
         L, d = self.n_levels, self.n_dims
@@ -378,17 +375,6 @@ class GridEncoding(Encoding):
             "corner": [tile_corner(k).astype(np.int32) for k in range(d)],
             "stride": [rep(self._strides[:, k]).astype(np.uint32)
                        for k in range(d)],
-            # one-hot (L*C, L) reduction matrix: corner sum as one matmul
-            "reduce": np.kron(np.eye(L, dtype=np.float32),
-                              np.ones((C, 1), np.float32)),
-            # per-feature (L*C, L*F) interleaving reducers: column l*F+k
-            # sums corner contributions of level l for feature k. Folding
-            # the feature interleave into the matmul avoids a rank-3
-            # (N, L, F) stack whose F-lane minor dim tile-pads 64x on
-            # TPU (measured: 2.3 s -> ms for a 1M-sample forward).
-            "reduce_feat": [
-                _feat_reduce(L, C, self.n_features_per_level, k)
-                for k in range(self.n_features_per_level)],
             "level_of": rep(np.arange(L)).astype(np.int32),
         }
         self._fc = fc
@@ -496,9 +482,7 @@ class GridEncoding(Encoding):
 
     def _row_table(self, params: jax.Array) -> jax.Array:
         """(total,) interleaved master -> (rows, 128) view, padded to a
-        whole number of rows (the pad is one dense elementwise copy —
-        ~0.1 ms for the 17M-param NeRF table, vs the 100s of ms the
-        per-descriptor gathers cost)."""
+        whole number of rows (the pad is one dense elementwise copy)."""
         total = params.shape[0]
         pad = (-total) % 128
         if pad:
@@ -507,15 +491,13 @@ class GridEncoding(Encoding):
 
     def _row_gather_features(self, params: jax.Array, entry: jax.Array):
         """entry (any shape, global ENTRY index) -> list of F f32 arrays
-        shaped like entry. ONE gather descriptor per entry fetches the
-        128-lane row holding it; the F features are lane-selected from
-        the row (measured 173M fetches/s including the select vs 105M/s
-        per flat element — microbench_gather_r3.json).
+        shaped like entry. One row gather per entry fetches the
+        128-float row holding it; the F features are lane-selected from
+        the row.
 
         Large batches run the chunks under lax.map: the row payload is
         128x the selected features, so letting XLA hoist independent
-        chunk gathers materializes ALL (chunk, 128) buffers at once
-        (observed: a 278 GB allocation on the 134M-fetch render path);
+        chunk gathers would materialize ALL (chunk, 128) buffers at once;
         lax.map pins peak memory to one chunk."""
         f = self.n_features_per_level
         epr = 128 // f
@@ -546,11 +528,9 @@ class GridEncoding(Encoding):
         """Sort deposits by entry and merge duplicate runs (segmented
         Hillis-Steele scan — dense shifts only, valid because keys are
         sorted), pointing merged-away lanes at an out-of-bounds
-        sentinel so the scatter drops them. Wins when the scatter rate
-        improves with fewer LIVE descriptors (duplication is heavy on
-        the coarse dense levels: 2^18 samples deposit into 4k entries).
-        Gated by `bwd_coalesce` pending the microbench
-        (scripts/microbench_deposit.py)."""
+        sentinel so the scatter drops them. Duplication is heavy on the
+        coarse dense levels (2^18 samples deposit into 4k entries).
+        Gated by `bwd_coalesce`."""
         n = flat.shape[0]
         sorted_all = jax.lax.sort((flat, *gflat), num_keys=1)
         e_s, segs = sorted_all[0], list(sorted_all[1:])
@@ -572,10 +552,9 @@ class GridEncoding(Encoding):
     def _row_scatter_add(self, acc2d: jax.Array, entry: jax.Array, gs):
         """Accumulate per-feature gradients gs (list of F arrays shaped
         like entry) at `entry` into the (rows, 128) accumulator: each
-        entry deposits ONE one-hot 128-lane row carrying all F feature
-        grads (measured 2.3x the flat-scatter rate at the train-step
-        operating point — microbench_gather_r3.json). Chunks run under
-        fori_loop so one (chunk, 128) update buffer exists at a time."""
+        entry deposits ONE one-hot 128-float row carrying all F feature
+        grads. Chunks run under fori_loop so one (chunk, 128) update
+        buffer exists at a time."""
         f = self.n_features_per_level
         epr = 128 // f
         flat = entry.reshape(-1)
@@ -616,11 +595,14 @@ class GridEncoding(Encoding):
         return acc2d.reshape(-1)[:self._total_params]
 
     def _fetch_feats(self, params: jax.Array, entry: jax.Array):
-        """List of F f32 feature arrays at `entry`. Row mode: ONE row
-        descriptor per entry (f32 precision). Planar packed: one
-        bf16-pair word per two features."""
+        """List of F f32 feature arrays at `entry`. Row mode: one row
+        gather per entry (f32 precision). Planar packed: one bf16-pair
+        word per two features. Planar flat: one f32 gather per feature."""
+        f = self.n_features_per_level
         if self._row_mode:
             return self._row_gather_features(params, entry)
+        if not (self.packed and f % 2 == 0):
+            return [params[k * self._n_words + entry] for k in range(f)]
         words = self._gather_pair_words(params, entry)
         feats = []
         for w in words:
@@ -638,30 +620,54 @@ class GridEncoding(Encoding):
             w.astype(jnp.uint16), jnp.bfloat16)
         return f0.astype(jnp.float32), f1.astype(jnp.float32)
 
-    def _build_packed_call(self):
-        """custom-VJP fused encode with ONE gather descriptor per
-        (sample, level, corner). Gradients: exact fp32 scatter-add into
-        the master for the table; hand-derived d-linear spatial gradient
-        for the inputs (needed by the camera-optimization path, Normals
-        rendering and mesh refinement)."""
-        fc = self._fused_constants()
-        f = self.n_features_per_level
+    def _corner_cotangents(self, g: jax.Array):
+        """(N, L*F) output cotangent -> F arrays (N, L*C): each level's
+        feature cotangent broadcast to its C corners."""
+        c = 2 ** self.n_dims
+        return [jnp.repeat(gk, c, axis=1)
+                for gk in _feature_cotangents(g.astype(jnp.float32),
+                                              self.n_features_per_level)]
+
+    def _input_grads(self, aux, dweight, comps, max_level):
+        """Hand-derived d-linear input gradient (camera optimization,
+        Normals rendering, mesh refinement):
+        dx_k = sum_lc dweight * (dw_sel_k/dx_k) * prod_{j!=k} w_sel_j."""
         d = self.n_dims
+        w_sel = aux["w_sel"]
+        dcomps = []
+        for k in range(d):
+            pe = None                                        # prod except k
+            for j in range(d):
+                if j == k:
+                    continue
+                pe = w_sel[j] if pe is None else pe * w_sel[j]
+            if pe is None:
+                pe = jnp.ones_like(dweight)
+            if max_level is not None:
+                # weight carried the coarse-to-fine mask; replicate it
+                lvl = jnp.asarray(self._fused_constants()["level_of"])
+                pe = pe * (jnp.asarray(max_level) >= lvl[None, :])
+            dx = jnp.sum(dweight * aux["dwsel_dx"][k] * pe, axis=1)
+            dcomps.append(dx.astype(comps[k].dtype))
+        return tuple(dcomps)
+
+    def _build_packed_call(self):
+        """custom-VJP fused encode with one gather per (sample, level,
+        corner, feature pair). Gradients: exact fp32 scatter-add into
+        the master for the table; hand-derived d-linear spatial gradient
+        for the inputs."""
+        f = self.n_features_per_level
+        L = self.n_levels
 
         def fwd_impl(params, comps, max_level):
             entry, weight, _ = self._fused_parts(comps, max_level)
             words_all = self._gather_pair_words(params, entry)
-            out = None
+            per_feat = []
             for p in range(f // 2):
                 v0, v1 = self.unpack_words(words_all[p])     # (N, LC)
-                contrib = jnp.dot(
-                    v0 * weight, jnp.asarray(fc["reduce_feat"][2 * p]),
-                    preferred_element_type=jnp.float32) \
-                    + jnp.dot(
-                    v1 * weight, jnp.asarray(fc["reduce_feat"][2 * p + 1]),
-                    preferred_element_type=jnp.float32)
-                out = contrib if out is None else out + contrib
-            return out, tuple(words_all)
+                per_feat += [_level_sum(v0 * weight, L),
+                             _level_sum(v1 * weight, L)]
+            return _interleave(per_feat), tuple(words_all)
 
         @jax.custom_vjp
         def call(params, comps, max_level):
@@ -675,7 +681,7 @@ class GridEncoding(Encoding):
             n_params, comps, max_level, words_all = res
             entry, weight, aux = self._fused_parts(comps, max_level,
                                                    need_grads=True)
-            g = g.astype(jnp.float32)                        # (N, L*F)
+            gks = self._corner_cotangents(g)                 # F x (N, LC)
 
             # table gradient: dL/dvals = g_k * weight, scatter-added at
             # the master's per-feature planes (exact fp32); and
@@ -684,10 +690,7 @@ class GridEncoding(Encoding):
             dweight = None
             dparams = jnp.zeros(n_params, jnp.float32)
             for p in range(f // 2):
-                r0 = jnp.asarray(fc["reduce_feat"][2 * p])
-                r1 = jnp.asarray(fc["reduce_feat"][2 * p + 1])
-                g0 = jnp.dot(g, r0.T, preferred_element_type=jnp.float32)
-                g1 = jnp.dot(g, r1.T, preferred_element_type=jnp.float32)
+                g0, g1 = gks[2 * p], gks[2 * p + 1]
                 dparams = dparams.at[(2 * p) * self._n_words
                                      + flat].add(
                     (g0 * weight).reshape(-1))
@@ -697,53 +700,26 @@ class GridEncoding(Encoding):
                 v0, v1 = self.unpack_words(words_all[p])
                 dw = g0 * v0 + g1 * v1                       # (N, LC)
                 dweight = dw if dweight is None else dweight + dw
-
-            # input gradient:
-            # dx_d = sum_lc dweight * (dw_sel_d/dx_d) * prod_{j!=d} w_sel_j
-            w_sel = aux["w_sel"]
-            dcomps = []
-            for k in range(d):
-                pe = None                                    # prod except k
-                for j in range(d):
-                    if j == k:
-                        continue
-                    pe = w_sel[j] if pe is None else pe * w_sel[j]
-                if pe is None:
-                    pe = jnp.ones_like(dweight)
-                if max_level is not None:
-                    # weight carried the coarse-to-fine mask; replicate it
-                    lvl = jnp.asarray(fc["level_of"])[None, :]
-                    pe = pe * (jnp.asarray(max_level) >= lvl)
-                dx = jnp.sum(dweight * aux["dwsel_dx"][k] * pe, axis=1)
-                dcomps.append(dx.astype(comps[k].dtype))
             dml = None if max_level is None else jnp.zeros_like(max_level)
-            return dparams, tuple(dcomps), dml
+            return (dparams, self._input_grads(aux, dweight, comps,
+                                               max_level), dml)
 
         call.defvjp(call_fwd, call_bwd)
         return call
 
     def _build_row_call(self):
         """Exact d-linear encode on the row-gather path: custom VJP with
-        ONE row descriptor per (sample, level, corner) in BOTH
-        directions — the forward lane-selects all F features from the
-        gathered row (full f32 precision, no bf16 packing), the backward
-        deposits all F feature grads as one one-hot row scatter-add.
-        Input gradients (camera optimization, Normals rendering, mesh
-        refinement) are the same hand-derived d-linear terms as the
-        packed path."""
-        fc = self._fused_constants()
-        f = self.n_features_per_level
-        d = self.n_dims
+        one row gather per (sample, level, corner) in BOTH directions —
+        the forward lane-selects all F features from the gathered row
+        (full f32 precision), the backward deposits all F feature grads
+        as one one-hot row scatter-add. Input gradients are the same
+        hand-derived d-linear terms as the packed path."""
+        L = self.n_levels
 
         def fwd_impl(params, comps, max_level):
             entry, weight, _ = self._fused_parts(comps, max_level)
             feats = self._row_gather_features(params, entry)  # F x (N,LC)
-            out = None
-            for k in range(f):
-                contrib = jnp.dot(feats[k] * weight,
-                                  jnp.asarray(fc["reduce_feat"][k]),
-                                  preferred_element_type=jnp.float32)
-                out = contrib if out is None else out + contrib
+            out = _interleave([_level_sum(v * weight, L) for v in feats])
             return out, tuple(feats)
 
         @jax.custom_vjp
@@ -758,35 +734,15 @@ class GridEncoding(Encoding):
             comps, max_level, feats = res
             entry, weight, aux = self._fused_parts(comps, max_level,
                                                    need_grads=True)
-            g = g.astype(jnp.float32)                        # (N, L*F)
             gks, dweight = [], None
-            for k in range(f):
-                gk = jnp.dot(g, jnp.asarray(fc["reduce_feat"][k]).T,
-                             preferred_element_type=jnp.float32)
+            for gk, v in zip(self._corner_cotangents(g), feats):
                 gks.append(gk * weight)
-                dw = gk * feats[k]
-                dweight = dw if dweight is None else dweight + dw
+                dweight = gk * v if dweight is None else dweight + gk * v
             dparams = self._row_acc_finish(self._row_scatter_add(
                 self._row_acc_init(), entry, gks))
-
-            # input gradient (same math as the packed path)
-            w_sel = aux["w_sel"]
-            dcomps = []
-            for k in range(d):
-                pe = None                                    # prod except k
-                for j in range(d):
-                    if j == k:
-                        continue
-                    pe = w_sel[j] if pe is None else pe * w_sel[j]
-                if pe is None:
-                    pe = jnp.ones_like(dweight)
-                if max_level is not None:
-                    lvl = jnp.asarray(fc["level_of"])[None, :]
-                    pe = pe * (jnp.asarray(max_level) >= lvl)
-                dx = jnp.sum(dweight * aux["dwsel_dx"][k] * pe, axis=1)
-                dcomps.append(dx.astype(comps[k].dtype))
             dml = None if max_level is None else jnp.zeros_like(max_level)
-            return dparams, tuple(dcomps), dml
+            return (dparams, self._input_grads(aux, dweight, comps,
+                                               max_level), dml)
 
         call.defvjp(call_fwd, call_bwd)
         return call
@@ -798,7 +754,6 @@ class GridEncoding(Encoding):
         if getattr(self, "_sc", None) is not None:
             return self._sc
         L, d = self.n_levels, self.n_dims
-        F = self.n_features_per_level
         sc = {
             "scale": self._scales.astype(np.float32),
             "res": self._resolutions.astype(np.int32),
@@ -807,8 +762,6 @@ class GridEncoding(Encoding):
             "offset": self._offsets.astype(np.uint32),
             "stride": [self._strides[:, k].astype(np.uint32)
                        for k in range(d)],
-            # (L, L*F) interleavers: column l*F+k carries level l feature k
-            "interleave": [_feat_reduce(L, 1, F, k) for k in range(F)],
             "level_of": np.arange(L, dtype=np.int32),
         }
         self._sc = sc
@@ -818,18 +771,17 @@ class GridEncoding(Encoding):
         """custom-VJP encode that samples corners per (sample, level)
         with probability equal to the d-linear weight — an unbiased
         estimator of the d-linear interpolation with up to 2^d fewer
-        gather descriptors (the dominant cost on TPU v5e, where gathers
-        run at ~110 M descriptors/s regardless of width).
+        table gathers and scatter-adds.
 
         `j_exact` (config default: stochastic_exact_axes) trades
-        descriptors for variance: along j randomly-chosen axes the
+        fetches for variance: along j randomly-chosen axes the
         interpolation is computed EXACTLY (both endpoints enumerated and
         weighted), the remaining d-j axes are Bernoulli-sampled — 2^j
-        descriptors per (sample, level) instead of 2^d. j=0 is the
+        fetches per (sample, level) instead of 2^d. j=0 is the
         original 1-corner estimator (callers tolerant of extra variance
         — e.g. the density-grid EMA-max prep, which already samples one
         random position per cell — pass exact_axes=0 to halve their
-        descriptor bill).
+        fetches).
 
         Training-only: the backward returns ZERO input gradients (callers
         that need dL/dx — camera/distortion optimization, Normals — must
@@ -932,17 +884,15 @@ class GridEncoding(Encoding):
             if max_level is not None:
                 lvl = jnp.asarray(sc["level_of"])[None, :]
                 mask = (jnp.asarray(max_level) >= lvl).astype(jnp.float32)
-            out = None
+            acc = [None] * F
             for entry, weight in pairs:
                 feats = self._fetch_feats(params, entry)         # F x (N, L)
                 scale = weight if mask is None else (
                     mask if weight is None else weight * mask)
                 for k in range(F):
                     v = feats[k] if scale is None else feats[k] * scale
-                    contrib = jnp.dot(
-                        v, jnp.asarray(sc["interleave"][k]),
-                        preferred_element_type=jnp.float32)
-                    out = contrib if out is None else out + contrib
+                    acc[k] = v if acc[k] is None else acc[k] + v
+            out = _interleave(acc)
             if self.stochastic_bwd and bwd_entry is not None:
                 scatter_pairs = [(bwd_entry, None)]
             else:
@@ -960,21 +910,14 @@ class GridEncoding(Encoding):
         def call_bwd(res, g):
             F = self.n_features_per_level
             n_params, pairs, max_level, comps = res
-            g = g.astype(jnp.float32)                            # (N, L*F)
-            mask = None
+            base_gks = _feature_cotangents(g.astype(jnp.float32), F)
             if max_level is not None:
                 lvl = jnp.asarray(sc["level_of"])[None, :]
                 mask = (jnp.asarray(max_level) >= lvl).astype(jnp.float32)
-            base_gks = []
-            for k in range(F):
-                gk = jnp.dot(g, jnp.asarray(sc["interleave"][k]).T,
-                             preferred_element_type=jnp.float32)
-                if mask is not None:
-                    gk = gk * mask
-                base_gks.append(gk)                              # (N, L)
+                base_gks = [gk * mask for gk in base_gks]        # (N, L)
             if self._row_mode:
                 # one one-hot row deposit per (sample, level) corner
-                # carries all F feature grads (2.3x the flat rate)
+                # carries all F feature grads
                 acc = self._row_acc_init()
                 for entry, weight in pairs:
                     gs = [gk if weight is None else gk * weight
@@ -1001,23 +944,20 @@ class GridEncoding(Encoding):
                          max_level: Optional[jax.Array] = None,
                          rng: Optional[jax.Array] = None,
                          exact_axes: Optional[int] = None) -> jax.Array:
-        """All levels+corners in one flattened (N, L*2^d) lane axis, with
-        corner reduction as an MXU matmul.
+        """All levels+corners in one flattened (N, L*2^d) axis; corners
+        and features reduce by reshape and sum.
 
         `comps`: list of d arrays (N,) — component-separated input keeps
-        every million-row intermediate's trailing dim at L*C (near the
-        128-lane width) instead of 3, which would tile-pad 42x.
+        every large intermediate's trailing dim at L*C instead of 3.
 
         `rng`: when given (training only), use the stochastic-corner
         estimator — one fetch per (sample, level, enumerated corner)
         instead of per 2^d corners — see _build_stochastic_call.
-        Requires row mode or packed mode (even F).
 
         `exact_axes`: per-call override of stochastic_exact_axes (only
         meaningful with rng) — variance-tolerant callers pass 0."""
         f = self.n_features_per_level
-        stoch_ok = self._row_mode or (self.packed and f % 2 == 0)
-        if rng is not None and stoch_ok:
+        if rng is not None:
             j = int(getattr(self, "stochastic_exact_axes", 0)) \
                 if exact_axes is None else int(exact_axes)
             if getattr(self, "_stoch_calls", None) is None:
@@ -1043,15 +983,11 @@ class GridEncoding(Encoding):
             out = self._packed_call(params, tuple(comps), ml)
             return out.astype(self.dtype)
 
+        # flat path: one f32 gather per (sample, level, corner, feature);
+        # autodiff gives the table gradient as a scatter-add
         entry, weight, _ = self._fused_parts(comps, max_level)
-        fc = self._fused_constants()
-        out = None
-        for feat in range(f):
-            vals = params[feat * self._n_words + entry]          # (N, LC)
-            contrib = jnp.dot(vals * weight,
-                              jnp.asarray(fc["reduce_feat"][feat]),
-                              preferred_element_type=jnp.float32)
-            out = contrib if out is None else out + contrib      # (N, L*F)
+        out = _interleave([_level_sum(v * weight, self.n_levels)
+                           for v in self._fetch_feats(params, entry)])
         return out.astype(self.dtype)
 
     def level_stats(self, params: jax.Array):

@@ -1,4 +1,4 @@
-"""Low-discrepancy and pseudo-random sample generation, vectorized for TPU.
+"""Low-discrepancy and pseudo-random sample generation, vectorized.
 
 Covers the QMC sampler family the reference exposes as ERandomMode
 {Random, Halton, Sobol, Stratified} (src/testbed_image.cu:39-74, selected
@@ -8,12 +8,12 @@ in train_image :225-244) and the per-spp pixel jitter
 The Sobol path is Burley's hash-shuffled, Owen-scrambled Sobol sequence
 [Burley 2019, JCGT 9(4)] — the same published algorithm the reference's
 random_val.cuh:160-291 uses — re-expressed as branch-free vectorized jnp
-over uint32 lanes (VPU-friendly: 32 XOR-select steps, no data-dependent
+over uint32 lanes (32 XOR-select steps, no data-dependent
 control flow). Direction-number tables are the published constants from
 that paper (dims 0-4).
 
 Pseudo-random generation uses stateless `jax.random` (threefry) rather
-than pcg32: the TPU design never replays an RNG stream (SURVEY.md §7
+than pcg32: this design never replays an RNG stream (SURVEY.md §7
 "RNG parity"), so counter-based keys are strictly better here.
 """
 

@@ -1,10 +1,10 @@
 """Multi-chip parallelism: mesh construction and sharding helpers.
 
 The reference has no distributed training (SURVEY.md §2.6) — its only
-multi-GPU feature is render offload via peer copies. The TPU design:
+multi-GPU feature is render offload via peer copies. The design here:
 - one `jax.sharding.Mesh` with a `data` axis over all chips (rays/pixels/
   samples sharded), parameters replicated;
-- gradients are reduced by XLA-inserted collectives riding ICI: with jit +
+- gradients are reduced by XLA-inserted collectives: with jit +
   sharding annotations, the `psum` appears automatically from the batch
   reduction in the loss;
 - occupancy-grid updates computed on sharded samples then max-reduced.

@@ -2,7 +2,7 @@
 
 The hash table is ~all of a NeRF's parameters (T=2^19 rows x F per
 level x L levels); everything else (two 64-wide MLPs) is KBs. The
-natural TPU tensor-parallel split is therefore BY LEVEL: each chip on
+natural tensor-parallel split is therefore BY LEVEL: each chip on
 the `model` mesh axis owns L/tp levels' tables, computes its levels'
 interpolated features, and one `all_gather` along the feature axis
 assembles the (N, L*F) encoding before the replicated MLPs. The
@@ -16,7 +16,7 @@ global level id `axis_index('model') * L/tp + j`, so every chip runs the
 same compiled program — no per-shard specialization, no branches.
 
 The reference has no tensor parallelism of any kind (SURVEY.md §2.6);
-this is the "shard hash table rows for very large T" TPU plan realized.
+this is the "shard hash table rows for very large T" plan realized.
 Memory note: the packed (L, Tmax, F) layout pads small dense levels to
 the largest level's row count. For standard configs most levels already
 sit at T rows, so padding costs <2x, and each chip stores only
@@ -32,7 +32,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from ..ops.grid_encoding import _PRIMES, GridEncoding
 
@@ -58,8 +57,8 @@ class LevelShardedGrid:
         self.hashed = jnp.asarray(np.asarray(enc._hashed, bool))
 
     # -- host-side packing --------------------------------------------
-    # Layout-aware: the flat vector is entry-interleaved in row mode
-    # (the default since the row-gather redesign) or planar otherwise;
+    # Layout-aware: the flat vector is planar (the default) or
+    # entry-interleaved in row mode;
     # level_params() abstracts that, and unpack writes the inverse.
     def pack(self, flat: jax.Array) -> jax.Array:
         """(n_params,) flat vector -> (L, Tmax, F), zero-padded rows."""
@@ -161,7 +160,7 @@ def make_tp_train_step(model, optimizer, cfg, aabb_min, aabb_max,
     be the packed (L, Tmax, F) table (see LevelShardedGrid.pack), laid
     out with NamedSharding P('model') on axis 0.
 
-    Collectives per step, all over ICI:
+    Collectives per step:
       all_gather(features) on model      — forward
       psum_scatter(feature grads)        — backward (automatic transpose)
       psum(table grads) on data          — gradient DP reduction
@@ -248,11 +247,11 @@ def make_tp_train_step(model, optimizer, cfg, aabb_min, aabb_max,
 
     def build(state_example):
         specs = state_specs(state_example)
-        sharded = shard_map(
+        sharded = jax.shard_map(
             local_step, mesh=mesh,
             in_specs=(specs, P(), P(), P(), P(data_axis)),
             out_specs=(specs, P()),
-            check_rep=False)
+            check_vma=False)
         return jax.jit(sharded, donate_argnums=(0,)), specs
 
     return build, sharded_enc

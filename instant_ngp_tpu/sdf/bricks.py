@@ -10,7 +10,7 @@ finest occupied cell at `brick_level` and trilinearly interpolates its
 brick — a pure-gather jittable function, so the sphere tracer can
 consume it like the learned SDF.
 
-TPU notes: brick build happens once on the host (native BVH,
+Notes: brick build happens once on the host (native BVH,
 multithreaded); sampling is one sorted-table lookup + an (N, 8) gather,
 fully inside jit.
 """

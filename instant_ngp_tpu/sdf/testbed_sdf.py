@@ -16,7 +16,7 @@ Re-implements src/testbed_sdf.cu (1400 LoC):
 - ground-truth modes: BVH raytrace / BVH-SDF sphere trace (oracles);
 - IoU metric: MC sign agreement vs the BVH (calculate_iou :1363-1399).
 
-TPU design: labels are produced by the native C++ BVH on the host (the
+Design: labels are produced by the native C++ BVH on the host (the
 one irregular workload here), everything else is jitted; the sphere
 tracer is a fixed-trip masked loop over full ray batches (lanes die by
 mask; no per-iteration host compaction).
@@ -186,7 +186,7 @@ class SdfTestbed:
 
     # ------------------------------------------------------------------
     # stochastic-corner grid encoding during training (unbiased, 2^d
-    # fewer gather/scatter descriptors on TPU; no-op for octree configs).
+    # fewer table gathers and scatter-adds; no-op for octree configs).
     # SDF fitting is a precision regression like image mode, so the
     # coarse-to-fine schedule switches to the exact d-linear encode
     # after stochastic_corners_until steps (None = never; armadillo IoU

@@ -17,7 +17,7 @@ Re-implements src/testbed_volume.cu (652 LoC):
   compositing alpha = clamp(density/majorant) (volume_render_kernel_step
   :351-409); GT renderer runs the same walk against the GT grid (:280).
 
-TPU design: paths are fixed-trip masked scans (128 events max like the
+Design: paths are fixed-trip masked scans (128 events max like the
 reference); free-flight sampling and the Morton bitgrid test vectorize
 per lane; everything jits end-to-end.
 """

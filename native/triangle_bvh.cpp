@@ -5,7 +5,7 @@
 // on the widest centroid axis, iterative stack traversal, signed distance
 // in Watertight (closest-triangle pseudo-normal) and Raystab (32
 // Fibonacci-lattice stab rays, sign by any-escape) modes, and batched ray
-// tracing. On the TPU system this runs on the host CPU: it labels SDF
+// tracing. It runs on the host CPU: it labels SDF
 // training batches and renders ground-truth references; all entry points
 // are batched and multithreaded.
 //

@@ -75,12 +75,9 @@ def run_sdf(steps: int, arm: str) -> dict:
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--steps", type=int, default=1000)
-    ap.add_argument("--cpu", action="store_true")
     ap.add_argument("--out", default=os.path.join(
         REPO, "walkthrough_out", "variance_schedule_ab.json"))
     args = ap.parse_args()
-    if args.cpu:
-        os.environ["JAX_PLATFORMS"] = "cpu"
 
     import jax
 

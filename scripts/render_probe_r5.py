@@ -15,7 +15,7 @@ so no training cost:
 
 2. STOCHASTIC RENDER ESTIMATOR: eval the same views with
    render_stochastic_corners at spp {2, 8} vs the exact path. The
-   PSNR delta prices the ~4x eval-descriptor saving (VERDICT r4 #6);
+   PSNR delta prices the ~4x saving in eval table fetches;
    wall times recorded per arm.
 
 Writes walkthrough_out/render_probe_r5.json.

@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Time-to-30dB on a scene that can reach it (VERDICT r3 #5).
+"""Time-to-30dB on a scene that can reach it.
 
 Fox is a real capture with an unknown PSNR ceiling; the north star
 (BASELINE.md: lego-class 800x800 to >=30 dB) needs a NOISELESS scene.
-This script synthesizes one deterministically — a lambertian sphere
-with an octant-checker albedo plus a ground disc, raytraced analytically
-at 400x400 from 64 orbit cameras — trains the shipped
+This script uses the procedural sphere scene
+(instant_ngp_tpu/data/procedural.py: an octant-checker sphere raytraced
+analytically at 400x400 from 64 orbit cameras), trains the shipped
 configs/nerf/base.json on it, and records the steps-to-PSNR /
 time-to-PSNR curve until the target (or the step cap).
 
@@ -14,7 +14,7 @@ reference's run.py on captures without --test_transforms), full-res,
 spp 2, black bg, sRGB — run.py:252-268 semantics.
 
 Writes walkthrough_out/time_to_30db_r4.json (wall-clock is TRAIN time
-only; eval renders are excluded, like fox_quality_r4).
+only; eval renders are excluded).
 
 Reference operating point being matched: README.md:10-14 (paper link:
 lego >=30 dB in the seconds-to-minutes class on an RTX 3090).
@@ -31,93 +31,6 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 
-def look_at(eye, center, up):
-    import numpy as np
-
-    f = center - eye
-    f = f / np.linalg.norm(f)
-    r = np.cross(f, up)
-    r = r / np.linalg.norm(r)
-    u = np.cross(f, r)
-    return np.stack([r, u, f, eye], axis=1).astype(np.float32)
-
-
-def raytrace_view(cam, size, focal):
-    """Analytic GT: lambertian octant-checker sphere (r=0.22 at box
-    center) over black, headlight shading. Returns (H, W, 4) uint8."""
-    import numpy as np
-
-    c = np.array([0.5, 0.5, 0.5], np.float32)
-    r = 0.22
-    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32) + 0.5
-    dirs = np.stack([(xx - size / 2) / focal, (yy - size / 2) / focal,
-                     np.ones_like(xx)], -1)
-    dirs = dirs @ cam[:3, :3].T
-    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
-    o = cam[:3, 3]
-    oc = o - c
-    b = np.einsum("hwc,c->hw", dirs, oc)
-    disc = b * b - (oc @ oc - r * r)
-    hit = disc > 0
-    t = -b - np.sqrt(np.maximum(disc, 0.0))
-    hit &= t > 0
-    p = o + dirs * t[..., None]
-    n = (p - c) / r
-    # octant checker albedo + smooth band so the target has both sharp
-    # and smooth structure
-    octant = ((n[..., 0] > 0).astype(int) + (n[..., 1] > 0).astype(int)
-              * 2 + (n[..., 2] > 0).astype(int) * 4)
-    palette = np.array(
-        [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9],
-         [0.9, 0.9, 0.2], [0.9, 0.2, 0.9], [0.2, 0.9, 0.9],
-         [0.95, 0.6, 0.2], [0.85, 0.85, 0.85]], np.float32)
-    albedo = palette[octant]
-    band = 0.5 + 0.5 * np.sin(12.0 * np.arcsin(np.clip(n[..., 1],
-                                                       -1, 1)))
-    albedo = albedo * (0.6 + 0.4 * band[..., None])
-    lam = np.clip(-np.einsum("hwc,hwc->hw", n, dirs), 0.0, 1.0)
-    shade = albedo * (0.25 + 0.75 * lam[..., None])
-    srgb = np.where(shade <= 0.0031308, shade * 12.92,
-                    1.055 * shade ** (1 / 2.4) - 0.055)
-    img = np.zeros((size, size, 4), np.float32)
-    img[..., :3] = np.where(hit[..., None], srgb, 0.0)
-    img[..., 3] = hit.astype(np.float32)
-    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
-
-
-def make_scene(n_cams=64, size=400):
-    import numpy as np
-
-    from instant_ngp_tpu.data.nerf_loader import (FrameMetadata, Lens,
-                                                  NerfDataset)
-
-    focal = size * 1.1
-    imgs, xforms, metas = [], [], []
-    rng = np.random.RandomState(7)
-    for i in range(n_cams):
-        ang = i / n_cams * 2 * np.pi
-        elev = 0.15 + 0.5 * rng.rand()
-        eye = np.array([0.5 + 0.85 * np.cos(ang) * np.cos(elev),
-                        0.5 + 0.85 * np.sin(elev),
-                        0.5 + 0.85 * np.sin(ang) * np.cos(elev)],
-                       np.float32)
-        cam = look_at(eye, np.array([0.5, 0.5, 0.5], np.float32),
-                      np.array([0, 1, 0], np.float32))
-        imgs.append(raytrace_view(cam, size, focal))
-        xforms.append(cam)
-        metas.append(FrameMetadata(
-            (size, size), np.array([focal, focal], np.float32),
-            np.array([0.5, 0.5], np.float32), np.zeros(4, np.float32),
-            Lens()))
-    ds = NerfDataset(paths=[f"synth{i}" for i in range(n_cams)],
-                     images=imgs, depths=[None] * n_cams,
-                     rays=[None] * n_cams, metadata=metas,
-                     xforms_start=np.stack(xforms),
-                     xforms_end=np.stack(xforms))
-    ds.aabb_scale = 1
-    return ds
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out-dir", default=os.path.join(REPO,
@@ -127,6 +40,7 @@ def main():
     ap.add_argument("--eval-views", type=int, nargs="*",
                     default=[0, 16, 32, 48])
     ap.add_argument("--size", type=int, default=400)
+    ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
     import numpy as np
@@ -135,10 +49,11 @@ def main():
     from instant_ngp_tpu.config import (find_network_config,
                                         load_network_config)
     from instant_ngp_tpu.data.images import write_image
+    from instant_ngp_tpu.data.procedural import make_scene
     from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed
 
     t0 = time.perf_counter()
-    ds = make_scene(size=args.size)
+    ds = make_scene(size=args.size, seed=args.seed)
     gen_s = time.perf_counter() - t0
     cfg = load_network_config(find_network_config("base.json",
                                                   mode="nerf"))

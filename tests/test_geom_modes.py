@@ -295,6 +295,50 @@ def test_geometry_scene(tmp_path):
     assert abs(t[0] - 1.5) < 1e-3
 
 
+def test_geometry_nerf_object_loads_either_grid_layout(tmp_path):
+    """A NeRF snapshot saved from a row-gather (entry-interleaved) encoder
+    loads into a geometry scene's default (planar) encoder with the same
+    hash table, and marches the same colours as its planar twin."""
+    import dataclasses
+    import json
+    import sys
+
+    from instant_ngp_tpu.geometry import GeometryTestbed
+    from instant_ngp_tpu.nerf.testbed_nerf import NerfTestbed
+    sys.path.insert(0, os.path.dirname(__file__))
+    from test_nerf_training import CFG, make_dataset
+
+    nerf = NerfTestbed(make_dataset(), CFG)
+    enc = nerf.model.pos_encoding
+    nerf.state["params"]["pos_encoding"] = jax.random.normal(
+        jax.random.PRNGKey(0), (enc.n_params,))
+    nerf.save_snapshot(str(tmp_path / "planar.ingp"))
+    row = dataclasses.replace(enc, row_gather=True)
+    nerf.state = row.convert_state_layout(nerf.state, enc.layout)
+    nerf.model.pos_encoding = row
+    nerf.save_snapshot(str(tmp_path / "interleaved.ingp"))
+
+    scene_path = str(tmp_path / "scene.json")
+    with open(scene_path, "w") as f:
+        json.dump({"geometry": [
+            {"center": [0.0, 0.0, 0.0], "path": name, "type": "Nerf"}
+            for name in ("interleaved.ingp", "planar.ingp")]}, f)
+    geo = GeometryTestbed(scene_path)
+    loaded, twin = geo.nerfs
+    assert loaded.model.pos_encoding.layout == "planar"
+    np.testing.assert_array_equal(
+        np.asarray(loaded.params["pos_encoding"]),
+        np.asarray(twin.params["pos_encoding"]))
+
+    o = np.tile(np.array([[0.5, 0.5, -1.0]], np.float32), (8, 1))
+    o[:, 0] += np.linspace(-0.3, 0.3, 8, dtype=np.float32)
+    d = np.tile(np.array([[0.0, 0.0, 1.0]], np.float32), (8, 1))
+    t_max = np.full(8, 10.0, np.float32)
+    for a, b in zip(geo._march_nerf_object(loaded, o, d, t_max),
+                    geo._march_nerf_object(twin, o, d, t_max)):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
 # ---------------------------------------------------------------------------
 # camera path
 # ---------------------------------------------------------------------------

@@ -142,13 +142,14 @@ def test_fused_matches_per_level_loop():
         np.testing.assert_allclose(np.asarray(g1), np.asarray(g2),
                                    rtol=1e-4, atol=1e-7)
 
-        # packed=True (the default, bf16-feature fast path): values
+        # packed=True (bf16 feature-pair path): values
         # within bf16 quantization of the exact path, table gradient
         # near-exact (fp32 scatter), input gradients within bf16 error
         encp = GridEncoding(n_dims=3, n_levels=6, n_features_per_level=2,
                             log2_hashmap_size=11, base_resolution=4,
-                            per_level_scale=1.6, grid_type=gtype)
-        assert encp.packed
+                            per_level_scale=1.6, grid_type=gtype,
+                            packed=True)
+        assert encp.packed and encp.layout == enc.layout == "planar"
         pf = encp.apply(params, x)
         scale = float(np.abs(np.asarray(loop)).max())
         np.testing.assert_allclose(np.asarray(pf), np.asarray(loop),
@@ -227,7 +228,7 @@ def test_stochastic_corner_unbiased_forward_and_grad():
 
 def test_stochastic_exact_axes_unbiased_with_lower_variance():
     """stochastic_exact_axes=j enumerates both endpoints along j random
-    axes (2^j descriptors): still unbiased, and per-entry variance
+    axes (2^j fetches): still unbiased, and per-entry variance
     drops monotonically with j."""
     import dataclasses
 
@@ -336,8 +337,7 @@ def test_stochastic_corner_max_level_masks():
 
 def test_f4_packed_matches_per_level_loop():
     """The reference fork's NeRF config uses L=8, F=4 — the packed and
-    stochastic fast paths must cover it (they fell back to the slow
-    unpacked path before, 587 ms vs 34 ms per 262K-sample call on TPU)."""
+    stochastic fast paths must cover it."""
     enc = GridEncoding(n_dims=3, n_levels=4, n_features_per_level=4,
                        log2_hashmap_size=9, base_resolution=4,
                        per_level_scale=1.7)
@@ -389,9 +389,8 @@ def test_f4_stochastic_unbiased():
 
 
 def test_row_mode_matches_planar():
-    """The row-gather path (entry-interleaved layout, one 128-lane row
-    descriptor per (sample, level, corner) — the default after the r3
-    TPU microbench, walkthrough_out/microbench_gather_r3.json) must
+    """The row-gather path (entry-interleaved layout, one 128-float row
+    gather per (sample, level, corner)) must
     reproduce the planar unpacked f32 path: same forward values, same
     table gradient (as a set of fp32 adds — scatter order may differ),
     same input gradients."""
@@ -400,7 +399,7 @@ def test_row_mode_matches_planar():
     for F in (1, 2, 4):
         row = GridEncoding(n_dims=3, n_levels=6, n_features_per_level=F,
                            log2_hashmap_size=12, base_resolution=4,
-                           per_level_scale=1.7)
+                           per_level_scale=1.7, row_gather=True)
         assert row._row_mode and row.layout == "interleaved"
         ref = dataclasses.replace(row, row_gather=False, packed=False)
         assert ref.layout == "planar"
@@ -465,7 +464,7 @@ def test_bwd_coalesce_gradient_matches_plain():
 
     plain = GridEncoding(n_dims=3, n_levels=4, n_features_per_level=4,
                          log2_hashmap_size=10, base_resolution=4,
-                         per_level_scale=1.9)
+                         per_level_scale=1.9, row_gather=True)
     coal = dataclasses.replace(plain, bwd_coalesce=True)
     assert plain._row_mode
     k = jax.random.PRNGKey(3)
@@ -483,3 +482,58 @@ def test_bwd_coalesce_gradient_matches_plain():
     scale = max(float(np.abs(g_plain).max()), 1.0)
     np.testing.assert_allclose(g_coal, g_plain, atol=scale * 1e-5)
     assert np.abs(g_plain).max() > 0
+
+
+def test_bwd_coalesce_rejected_without_row_mode():
+    """bwd_coalesce only changes the row backward: on the default planar
+    encoder, directly or from a config, it is an error, not a no-op."""
+    with pytest.raises(ValueError, match="row_gather"):
+        GridEncoding(n_dims=3, n_levels=2, log2_hashmap_size=10,
+                     bwd_coalesce=True)
+    with pytest.raises(ValueError, match="row_gather"):
+        GridEncoding.from_config(3, {"otype": "HashGrid", "n_levels": 2,
+                                     "bwd_coalesce": True})
+
+
+def _f32_dots(jaxpr):
+    """dot_general equations with a float32 operand at default precision,
+    searched through every sub-jaxpr (custom VJPs, maps, loops)."""
+    found = []
+    for eqn in jaxpr.eqns:
+        if eqn.primitive.name == "dot_general":
+            prec = eqn.params.get("precision")
+            highest = prec is not None and all(
+                p == jax.lax.Precision.HIGHEST for p in
+                (prec if isinstance(prec, tuple) else (prec,)))
+            if not highest and any(v.aval.dtype == jnp.float32
+                                   for v in eqn.invars):
+                found.append(eqn)
+        for sub in jax.core.jaxprs_in_params(eqn.params):
+            found += _f32_dots(sub)
+    return found
+
+
+@pytest.mark.parametrize("path", ["flat", "row", "packed", "stochastic",
+                                  "row-stochastic"])
+def test_encode_has_no_default_precision_f32_dot(path):
+    """On GPUs an f32 matmul at default precision runs in TF32 (a 10-bit
+    mantissa); no such dot may remain in the encode's forward or
+    backward, on any path."""
+    import dataclasses
+
+    enc = GridEncoding.from_config(3, {
+        "otype": "HashGrid", "n_levels": 4, "n_features_per_level": 4,
+        "log2_hashmap_size": 12, "base_resolution": 4,
+        "stochastic_exact_axes": 1, "stochastic_bwd": True})
+    enc = dataclasses.replace(enc, row_gather=path.startswith("row"),
+                              packed=path == "packed")
+    params = enc.init(jax.random.PRNGKey(0))
+    x = jax.random.uniform(jax.random.PRNGKey(1), (64, 3))
+    rng = jax.random.PRNGKey(2) if path.endswith("stochastic") else None
+
+    def loss(p, x):
+        return jnp.sum(enc.apply(p, x, max_level=jnp.asarray(2.0),
+                                 rng=rng) ** 2)
+
+    jaxpr = jax.make_jaxpr(jax.grad(loss, argnums=(0, 1)))(params, x)
+    assert not _f32_dots(jaxpr.jaxpr), path

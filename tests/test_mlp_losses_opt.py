@@ -137,8 +137,12 @@ def test_l2_reg_mask():
 
 
 def test_nested_reference_config_parses():
-    from instant_ngp_tpu.config import load_network_config
-    cfg = load_network_config("/root/reference/configs/nerf/base.json")
+    """The shipped NeRF config carries the reference's optimizer block:
+    Ema(0.95) over ExponentialDecay(0.33 from step 20000) over Adam."""
+    from instant_ngp_tpu.config import (find_network_config,
+                                        load_network_config)
+    cfg = load_network_config(find_network_config("base.json",
+                                                  mode="nerf"))
     opt = create_optimizer(cfg["optimizer"])
     assert opt.base_learning_rate == 1e-2
     assert opt._ema is not None and opt._decay is not None

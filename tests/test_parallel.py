@@ -22,7 +22,6 @@ def test_tp_level_sharded_encoding_matches_replicated():
     """Level-sharded TP features == the plain encoding's features."""
     if len(jax.devices()) < 4:
         pytest.skip("needs 4 devices")
-    from jax.experimental.shard_map import shard_map
     from jax.sharding import Mesh, PartitionSpec as P
 
     from instant_ngp_tpu.ops.grid_encoding import GridEncoding
@@ -45,10 +44,10 @@ def test_tp_level_sharded_encoding_matches_replicated():
     pos = jax.random.uniform(jax.random.PRNGKey(2), (64, 3))
     comps = [pos[:, 0], pos[:, 1], pos[:, 2]]
 
-    tp_feats = jax.jit(shard_map(
+    tp_feats = jax.jit(jax.shard_map(
         lambda t, a, b, c: sh.local_features(t, [a, b, c]),
         mesh=mesh, in_specs=(P("model"), P(), P(), P()),
-        out_specs=P(), check_rep=False))(table, *comps)
+        out_specs=P(), check_vma=False))(table, *comps)
     ref = enc.apply(params, pos)
     np.testing.assert_allclose(np.asarray(tp_feats), np.asarray(ref),
                                rtol=1e-5, atol=1e-7)

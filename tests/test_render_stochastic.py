@@ -1,6 +1,6 @@
 """Stochastic-corner RENDER estimator (render_stochastic_corners):
 the j-axis-exact training encode can also drive eval rendering (~4x
-fewer gather descriptors on the eval wall). These tests pin the
+fewer table fetches on the eval render). These tests pin the
 plumbing: rng engages the estimator, no rng means the exact path, and
 spp averaging drives the noise down."""
 

@@ -87,6 +87,27 @@ def test_wavefront_early_out_skips_dead_rays():
     np.testing.assert_allclose(np.asarray(out["alpha"]), 0.0)
 
 
+def test_default_render_budget_keeps_every_sample():
+    """The default per-ray render cap is the march's own candidate count,
+    so a ray that crosses the whole occupied cube keeps all of its
+    samples (a fixed cap of 512 used to cut the diagonal's deep tail)."""
+    from instant_ngp_tpu.nerf.occupancy import init_bitfield
+
+    tb = NerfTestbed(make_dataset(), CFG)
+    tb.n_march = 1024
+    wr = tb._get_render_fn(256, "Shade", 1e-4).__self__
+    assert wr.cfg.max_samples_per_ray == tb.n_march
+
+    d = jnp.tile(jnp.asarray([[1.0, 1.0, 1.0]]) / np.sqrt(3.0), (4, 1))
+    o = jnp.asarray(tb.scene.aabb_min)[None] - 0.05 + 0.01 * jnp.arange(
+        4.0)[:, None] * jnp.asarray([[1.0, -1.0, 0.0]])
+    full = jnp.full_like(init_bitfield(), 255)
+    _, ok, n_cand, valid = wr._prep(o, d, full)
+    assert bool(valid.all())
+    assert int(n_cand.min()) > 512
+    np.testing.assert_array_equal(np.asarray(ok).sum(1), np.asarray(n_cand))
+
+
 def test_wavefront_budget_smaller_than_chunk():
     """Regression (round-4 crash): a march budget smaller than the depth
     chunk K must render, not crash dynamic_slice — and must still match
